@@ -18,10 +18,10 @@ matplotlib.use("Agg")
 import matplotlib.pyplot as plt  # noqa: E402
 import numpy as np  # noqa: E402
 
-from calciumgan_tpu.config import Config  # noqa: E402
-from calciumgan_tpu.ops import spike_metrics as sm  # noqa: E402
-from calciumgan_tpu.eval.spike_eval import ensure_spikes  # noqa: E402
-from calciumgan_tpu.utils import h5, io  # noqa: E402
+from calciumgan.config import Config  # noqa: E402
+from calciumgan.ops import spike_metrics as sm  # noqa: E402
+from calciumgan.eval.spike_eval import ensure_spikes  # noqa: E402
+from calciumgan.utils import h5, io  # noqa: E402
 
 REAL_COLOR, FAKE_COLOR = "dodgerblue", "orangered"
 
@@ -30,7 +30,7 @@ def get_data_statistics(config, filename):
     """(num_neurons, num_trials) firing rates and (P, num_trials) binned
     upper-triangle covariances (k=0), NaN -> 0
     (parity: ``compute_dg_metrics.py:40-58``)."""
-    from calciumgan_tpu.utils import arrays
+    from calciumgan.utils import arrays
     # infer the on-disk layout from metadata, then read only the
     # num_trials rows actually used when the trial axis leads — reading
     # the whole dataset to keep 5 trials costs GBs on production runs

@@ -1,7 +1,7 @@
 """Post-hoc spike-metric evaluation of a trained run.
 
 CLI parity with ``/root/reference/compute_metrics.py:549-571`` (same flags),
-re-designed for TPU: spike deconvolution and all four statistics run as
+re-designed for accelerators: spike deconvolution and all four statistics run as
 batched on-device computations; ``--num_processors`` sizes the matplotlib
 render pool instead of a metric-computation pool (figures were the real
 host bottleneck), and ``--no_plots`` skips figures entirely for sweeps.
@@ -14,10 +14,10 @@ from time import time
 
 import numpy as np
 
-from calciumgan_tpu.config import Config
-from calciumgan_tpu.eval import spike_eval
-from calciumgan_tpu.utils import h5, io
-from calciumgan_tpu.utils.summary import Summary
+from calciumgan.config import Config
+from calciumgan.eval import spike_eval
+from calciumgan.utils import h5, io
+from calciumgan.utils.summary import Summary
 
 
 def main(config, with_covariance: bool = False,
@@ -169,7 +169,7 @@ if __name__ == "__main__":
     # persistent XLA cache: repeat evals (e.g. per-epoch sweeps re-run after
     # a stall) skip the one-time per-shape compiles of the deconvolution and
     # metric programs
-    from calciumgan_tpu.train import enable_compilation_cache
+    from calciumgan.train import enable_compilation_cache
     enable_compilation_cache()
 
     with_covariance = args.covariance

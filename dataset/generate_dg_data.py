@@ -4,9 +4,9 @@ Parity with ``/root/reference/dataset/generate_dg_data.py:15-101``: drop the
 first 2 neurons, fit gauss_mean (Φ⁻¹) + fixed-rate covariance, sample spike
 trains of the same duration, convolve spikes -> calcium with the AR(1)
 kernel + Gaussian noise (sn=0.3), save ``{signals, oasis, mean, covariance}``.
-TPU-native: the DG fit solves all neuron pairs in one vmapped bisection, the
+On device: the DG fit solves all neuron pairs in one vmapped bisection, the
 sampler and the AR synthesis are single device computations
-(:func:`calciumgan_tpu.ops.oasis.ar1_filter` — a log-depth associative scan).
+(:func:`calciumgan.ops.oasis.ar1_filter` — a log-depth associative scan).
 """
 
 import os as _os
@@ -22,8 +22,8 @@ import pickle
 import jax
 import numpy as np
 
-from calciumgan_tpu.ops.dg import DichotGauss, DGOptimise
-from calciumgan_tpu.ops.oasis import ar1_filter
+from calciumgan.ops.dg import DichotGauss, DGOptimise
+from calciumgan.ops.oasis import ar1_filter
 
 
 def get_recorded_data_statistics(args):
@@ -89,7 +89,8 @@ if __name__ == "__main__":
     parser = argparse.ArgumentParser()
     parser.add_argument("--device", default="cpu",
                         choices=["cpu", "auto"],
-                        help="offline prep defaults to the host CPU backend;\n'auto' uses the default (TPU) platform")
+                        help="offline prep defaults to the host CPU "
+                             "backend; 'auto' uses the default platform")
     parser.add_argument("--input",
                         default="raw_data/ST260_Day4_signals4Bryan.pkl")
     parser.add_argument("--output", default="dg/data.pkl")

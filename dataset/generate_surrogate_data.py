@@ -22,8 +22,8 @@ import shutil
 import jax
 import numpy as np
 
-from calciumgan_tpu.ops.dg import DichotGauss
-from calciumgan_tpu.ops.oasis import ar1_filter
+from calciumgan.ops.dg import DichotGauss
+from calciumgan.ops.oasis import ar1_filter
 
 
 def generate_dg_spikes(args, sampler, key, num_samples,
@@ -86,7 +86,8 @@ if __name__ == "__main__":
     parser = argparse.ArgumentParser()
     parser.add_argument("--device", default="cpu",
                         choices=["cpu", "auto"],
-                        help="offline prep defaults to the host CPU backend;\n'auto' uses the default (TPU) platform")
+                        help="offline prep defaults to the host CPU "
+                             "backend; 'auto' uses the default platform")
     parser.add_argument("--output_dir", default="surrogate", type=str)
     parser.add_argument("--num_samples", default=2 * 10**6, type=int)
     parser.add_argument("--training_size", default=9192, type=int)

@@ -2,9 +2,9 @@
 
 CLI parity with ``/root/reference/dataset/generate_tfrecords.py:255-275``
 (same flags and on-disk format); the segmentation/FFT/normalisation logic
-lives in :mod:`calciumgan_tpu.data.segments` (vectorised) and the records are
+lives in :mod:`calciumgan.data.segments` (vectorised) and the records are
 written with the pure-Python TFRecord codec
-(:mod:`calciumgan_tpu.data.tfrecord`) — byte-compatible with tf.data readers.
+(:mod:`calciumgan.data.tfrecord`) — byte-compatible with tf.data readers.
 """
 
 import os as _os
@@ -17,7 +17,7 @@ import argparse
 import os
 import pickle
 
-from calciumgan_tpu.data import segments
+from calciumgan.data import segments
 
 
 def main(args):
@@ -67,7 +67,7 @@ if __name__ == "__main__":
                              "(reference semantics, one scalar pair over "
                              "all coefficients) or 'per_channel' (one pair "
                              "per coefficient position — avoids the DC-"
-                             "outlier precision squeeze, BASELINE.md)")
+                             "outlier precision squeeze)")
     parser.add_argument("--conv2d", action="store_true")
     parser.add_argument("--replace", action="store_true")
     parser.add_argument("--validation_size", default=1000, type=int)

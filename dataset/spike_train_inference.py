@@ -3,11 +3,10 @@
 Parity with ``/root/reference/dataset/spike_train_inference.py:12-65``:
 per pickle in ``--input_dir``, deconvolve every neuron with
 oasisAR1(g=0.95, s_min=0.55), binarise at 0.5, store under key ``'oasis'``;
-``--clean`` removes the key. TPU-native: the whole (neurons, T) matrix is
-deconvolved as one batched device computation
-(:func:`calciumgan_tpu.ops.oasis.deconvolve_signals_host` — the same
-depth-ladder Pallas dispatch the eval pipeline uses, with flagged traces
-recomputed host-side instead of an in-graph whole-batch redo).
+``--clean`` removes the key. The whole (neurons, T) matrix is deconvolved in
+one batched call through the eval pipeline's backend
+(:func:`calciumgan.eval.spike_eval.deconvolve_traces`: the CUDA kernel on
+a GPU, the C++ OpenMP kernel on the host; both exact float64 OASIS).
 """
 
 import os as _os
@@ -24,7 +23,7 @@ from glob import glob
 import jax
 import numpy as np
 
-from calciumgan_tpu.eval.spike_eval import deconvolve_traces
+from calciumgan.eval.spike_eval import deconvolve_traces
 
 
 def generate_spike_train(args, filename):
@@ -40,9 +39,8 @@ def generate_spike_train(args, filename):
             return
 
     signals = np.asarray(data["signals"], np.float32)
-    # shared backend dispatch (Pallas depth ladder on TPU, C++ OpenMP host
-    # kernel, exact XLA fallback) — one policy for the eval pipeline and
-    # this CLI, so backend changes reach both
+    # the eval pipeline's backend choice — one policy for the eval pipeline
+    # and this CLI, so backend changes reach both
     oasis = deconvolve_traces(signals)
     data["oasis"] = oasis.astype(np.float32)
 
@@ -74,13 +72,15 @@ if __name__ == "__main__":
     parser = argparse.ArgumentParser()
     parser.add_argument("--device", default="cpu",
                         choices=["cpu", "auto"],
-                        help="offline prep defaults to the host CPU backend;\n'auto' uses the default (TPU) platform")
+                        help="'cpu' deconvolves on the host (C++ OpenMP "
+                             "kernel); 'auto' uses the default platform "
+                             "(the CUDA kernel on a GPU)")
     parser.add_argument("--input_dir", default="raw_data", type=str)
     parser.add_argument("--overwrite", action="store_true")
     parser.add_argument("--clean", action="store_true")
     args = parser.parse_args()
     if args.device == "cpu":
         jax.config.update("jax_platforms", "cpu")
-    from calciumgan_tpu.train import enable_compilation_cache
+    from calciumgan.train import enable_compilation_cache
     enable_compilation_cache()  # rerun CLIs skip the per-shape compiles
     main(args)

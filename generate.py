@@ -17,17 +17,17 @@ import os
 import jax
 import numpy as np
 
-from calciumgan_tpu.algorithms.registry import get_algorithm
-from calciumgan_tpu.config import Config
-from calciumgan_tpu.data.pipeline import reverse_preprocessing
-from calciumgan_tpu.models.registry import get_models
-from calciumgan_tpu.parallel import mesh as mesh_lib
-from calciumgan_tpu.utils import checkpoint, h5
+from calciumgan.algorithms.registry import get_algorithm
+from calciumgan.config import Config
+from calciumgan.data.pipeline import reverse_preprocessing
+from calciumgan.models.registry import get_models
+from calciumgan.parallel import mesh as mesh_lib
+from calciumgan.utils import checkpoint, h5
 
 
 def main(config, num_samples: int, out: str, batch_size: int = 1024,
          with_spikes: bool = False, epoch=None, seed: int = 0):
-    from calciumgan_tpu.train import enable_compilation_cache
+    from calciumgan.train import enable_compilation_cache
     enable_compilation_cache()
 
     config.load()  # hparams.json of the training run
@@ -71,7 +71,7 @@ def main(config, num_samples: int, out: str, batch_size: int = 1024,
             config, mesh_lib.local_rows(fake))[:n].astype(np.float32)
         payload = {"signals": signals}
         if with_spikes:
-            from calciumgan_tpu.eval.spike_eval import deconvolve_traces
+            from calciumgan.eval.spike_eval import deconvolve_traces
             traces = np.transpose(signals, (0, 2, 1))
             payload["spikes"] = np.transpose(
                 deconvolve_traces(traces), (0, 2, 1)).astype(np.int8)

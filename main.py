@@ -1,15 +1,15 @@
-"""Train CalciumGAN-TPU.
+"""Train CalciumGAN.
 
 CLI parity with the reference driver (``/root/reference/main.py:227-267``):
 same flag names and defaults, with the broken ``--model wavegan`` default
-fixed to the registered ``calciumgan`` (SURVEY.md §2.11.2), plus TPU-native
-flags (``--seed``, ``--data_parallelism``, ``--model_parallelism``,
+fixed to the registered ``calciumgan`` (SURVEY.md §2.11.2), plus
+parallelism and runtime flags (``--seed``, ``--data_parallelism``, ``--model_parallelism``,
 ``--checkpoint_every``).
 """
 
 import argparse
 
-from calciumgan_tpu.config import Config
+from calciumgan.config import Config
 
 
 def parse_args(argv=None) -> Config:
@@ -54,7 +54,7 @@ def parse_args(argv=None) -> Config:
     parser.add_argument("--profile", action="store_true")
     parser.add_argument("--dpi", default=120, type=int)
     parser.add_argument("--verbose", default=1, type=int)
-    # TPU-native flags
+    # parallelism and runtime flags (not in the reference)
     parser.add_argument("--seed", default=1234, type=int)
     parser.add_argument("--data_parallelism", default=-1, type=int,
                         help="-1: all visible devices")
@@ -64,10 +64,10 @@ def parse_args(argv=None) -> Config:
                              "for long-context training (wgan-gp + "
                              "calciumgan + layer_norm)")
     parser.add_argument("--dcn_slices", default=1, type=int,
-                        help="multi-slice: prepend a DCN 'slice' mesh axis "
-                             "restricted to data parallelism (batch shards "
-                             "over slice x data; only gradient all-reduces "
-                             "cross the inter-slice link)")
+                        help="multi-slice: prepend a 'slice' mesh axis over "
+                             "contiguous device blocks, restricted to data "
+                             "parallelism (batch shards over slice x data; "
+                             "only gradient all-reduces cross blocks)")
     parser.add_argument("--checkpoint_every", default=10, type=int)
     parser.add_argument("--device_store", default="auto",
                         choices=["auto", "on", "off"],
@@ -93,6 +93,6 @@ def parse_args(argv=None) -> Config:
 
 
 if __name__ == "__main__":
-    from calciumgan_tpu.train import main
+    from calciumgan.train import main
 
     main(parse_args())

@@ -20,8 +20,8 @@ import warnings
 from shutil import rmtree
 from time import time
 
-from calciumgan_tpu.config import Config
-from calciumgan_tpu.utils.tb import EventWriter
+from calciumgan.config import Config
+from calciumgan.utils.tb import EventWriter
 
 DEFAULT_GRID = {
     "algorithm": ["wgan-gp"],
@@ -73,7 +73,7 @@ def experiment_config(args, session: int, params: dict) -> Config:
 
 def run_experiment(config: Config, session: int, params: dict,
                    devices=None) -> dict:
-    from calciumgan_tpu.train import main as train
+    from calciumgan.train import main as train
 
     print(f"\nExperiment {session:03d}\n"
           "-----------------------------------------")
@@ -147,7 +147,7 @@ def search(args):
         for session, params in sessions:
             _run_one(args, results_path, lock, session, params)
     else:
-        # experiment parallelism over the device mesh (BASELINE config 5):
+        # experiment parallelism over the device mesh:
         # the sweep is split over `parallel` worker threads, each training
         # on its own contiguous slice of the visible devices; jax dispatch
         # releases the GIL so experiments overlap on-chip

@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from calciumgan_tpu.algorithms import get_algorithm
-from calciumgan_tpu.config import Config
-from calciumgan_tpu.models import get_models
-from calciumgan_tpu.parallel import (batch_sharding, create_mesh,
+from calciumgan.algorithms import get_algorithm
+from calciumgan.config import Config
+from calciumgan.models import get_models
+from calciumgan.parallel import (batch_sharding, create_mesh,
                                      make_step_fns, state_shardings)
 
 
@@ -84,8 +84,7 @@ def test_eval_step_does_not_mutate():
 @pytest.mark.parametrize("algorithm", ["wgan-gp", "gan"])
 def test_eval_mask_ignores_padded_rows(algorithm):
     """With a row mask, every logged eval statistic must be INDEPENDENT of
-    the padded rows' content (exact tail-batch reduction — VERDICT r2 weak
-    #7): two batches identical in their 8 real rows but with different
+    the padded rows' content (exact tail-batch reduction): two batches identical in their 8 real rows but with different
     filler must log identical values, and they must differ from the
     unmasked (filler-weighted) run."""
     cfg = tiny_config(algorithm=algorithm)
@@ -110,7 +109,7 @@ def test_eval_mask_ignores_padded_rows(algorithm):
                for k in logs_a)
 
     # the weighted mean itself is exact
-    from calciumgan_tpu.ops import signal_metrics as sm
+    from calciumgan.ops import signal_metrics as sm
     x = jnp.asarray(np.arange(12, dtype=np.float32))
     assert float(sm.batch_weighted_mean(x, mask)) == pytest.approx(
         float(np.mean(np.arange(8))))
@@ -196,7 +195,7 @@ def test_data_mesh_matches_single_device():
 @pytest.mark.slow
 def test_model_parallel_mesh_runs():
     """Model parallelism must actually shard the discriminator head (the
-    O(seq) Dense(1) kernel — VERDICT.md weak #5: the divisibility guard in
+    O(seq) Dense(1) kernel — the divisibility guard in
     ``mesh.py`` can silently fall back to replication) and produce the same
     losses as the unsharded step."""
     from jax.sharding import PartitionSpec as P
@@ -320,7 +319,7 @@ def test_model_parallel_shardy_canary():
 
 @pytest.mark.slow
 def test_multi_slice_dcn_mesh_matches_single_device():
-    """Faked 2-slice (DCN) topology: (slice=2, data=2, model=2) over the 8
+    """Faked 2-slice topology: (slice=2, data=2, model=2) over the 8
     virtual devices. The slice axis is data-parallel only — batch sharded
     P(('slice','data')), params replicated across slices, model sharding
     contained within a slice — and the step must compute the same losses as
@@ -336,7 +335,7 @@ def test_multi_slice_dcn_mesh_matches_single_device():
 
     mesh = create_mesh(data_parallelism=2, model_parallelism=2, slices=2)
     assert mesh.axis_names == ("slice", "data", "model")
-    from calciumgan_tpu.parallel.mesh import data_extent
+    from calciumgan.parallel.mesh import data_extent
     assert data_extent(mesh) == 4
     train, _, _ = make_step_fns(algo, mesh, state)
     sharded_state = jax.device_put(state, state_shardings(mesh, state))
@@ -357,9 +356,8 @@ def test_multi_slice_dcn_mesh_matches_single_device():
 
 def test_slice_groups_stay_within_physical_blocks():
     """With a sub-slice data extent, each mesh slice group must draw from
-    its own physical slice's contiguous device block (jax.devices()
-    enumerates slice-by-slice) — a flat devices[:n] reshape would build
-    'in-slice' groups straddling the slow DCN boundary."""
+    its own contiguous block of devices — a flat devices[:n] reshape would
+    build 'in-slice' groups straddling two blocks."""
     devices = jax.devices()
     mesh = create_mesh(data_parallelism=3, model_parallelism=1, slices=2)
     groups = [[d.id for d in row.ravel()] for row in mesh.devices]
@@ -370,7 +368,7 @@ def test_slice_groups_stay_within_physical_blocks():
 
 
 def test_create_time_mesh_rejects_oversized_request():
-    from calciumgan_tpu.parallel.long_context import create_time_mesh
+    from calciumgan.parallel.long_context import create_time_mesh
     with pytest.raises(ValueError, match="mesh needs"):
         create_time_mesh(2, 8)  # 16 > the 8 faked devices
 
@@ -433,10 +431,7 @@ def test_generator_ema_tracks_and_drives_eval(algorithm):
 def test_ema_is_a_pure_sidecar():
     """The EMA must never feed back into training: trajectories that differ
     only in --ema decay (off / 0.5 / 0.99) produce bit-identical generator,
-    discriminator, and optimizer states. Verified at scale on hardware: two
-    full 150-epoch TPU runs differing only in decay (0.999 vs 0.99) produced
-    bit-identical generated signals at every checkpoint (BASELINE.md,
-    round-5 EMA horizon study)."""
+    discriminator, and optimizer states."""
     finals = {}
     for ema in (0.0, 0.5, 0.99):
         algo, state = build(tiny_config(ema=ema, n_critic=1))
@@ -481,7 +476,7 @@ def test_ema_survives_donated_mesh_step():
     mesh = create_mesh(4, 2)
     state = jax.device_put(state, state_shardings(mesh, state))
     train, _, _ = make_step_fns(algo, mesh, state)
-    from calciumgan_tpu.parallel.mesh import shard_batch
+    from calciumgan.parallel.mesh import shard_batch
     batch = shard_batch(mesh, fake_batch(cfg))
     state, logs = train(state, batch, jax.random.PRNGKey(1))
     state, logs = train(state, batch, jax.random.PRNGKey(2))

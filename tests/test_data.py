@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from calciumgan_tpu.config import Config
-from calciumgan_tpu.data import pipeline, segments, tfrecord
+from calciumgan.config import Config
+from calciumgan.data import pipeline, segments, tfrecord
 
 
 # ---- crc32c / framing ----------------------------------------------------
@@ -231,8 +231,8 @@ def test_reverse_preprocessing_roundtrip(rng):
 
 def test_device_prefetcher(tmp_path, rng):
     import jax
-    from calciumgan_tpu.parallel import create_mesh
-    from calciumgan_tpu.parallel.mesh import put_batch
+    from calciumgan.parallel import create_mesh
+    from calciumgan.parallel.mesh import put_batch
     out, _, _ = make_dataset_dir(tmp_path, rng)
     cfg = Config(input_dir=out, batch_size=8)
     train, _ = pipeline.get_datasets(cfg)
@@ -251,7 +251,7 @@ def test_device_store_smaller_than_data_axis(rng):
     """Datasets with fewer rows than the mesh's batch-shard divisor must
     tile their pad filler (a plain ``signals[:pad]`` comes up short and
     device_put fails with an opaque shard-shape error)."""
-    from calciumgan_tpu.parallel import create_mesh
+    from calciumgan.parallel import create_mesh
 
     mesh = create_mesh(data_parallelism=8)
     signals = rng.random((3, 16, 2)).astype(np.float32)
@@ -280,7 +280,7 @@ def test_write_dataset_rejects_oversized_validation(tmp_path, rng):
     segments with a NEGATIVE train_size in info.pkl (found by the round-5
     sweep prep); it must fail loudly instead."""
     import pytest
-    from calciumgan_tpu.data import segments
+    from calciumgan.data import segments
     data = {"signals": rng.random((4, 400)).astype(np.float32),
             "oasis": (rng.random((4, 400)) < 0.05).astype(np.float32)}
     s, sp, m = segments.preprocess(data, 64, 8, do_normalize=True,

@@ -6,7 +6,7 @@ import scipy.stats as st
 
 import jax
 
-from calciumgan_tpu.ops import dg
+from calciumgan.ops import dg
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,7 @@ the reference uses the pre-rename ``binsize=`` / ``corrcoef`` surface):
 
 import numpy as np
 
-from calciumgan_tpu.ops import spike_metrics as sm
+from calciumgan.ops import spike_metrics as sm
 
 
 def train(T, frames):

@@ -5,10 +5,10 @@ import os
 import numpy as np
 import pytest
 
-from calciumgan_tpu.config import Config
-from calciumgan_tpu.eval import spike_eval
-from calciumgan_tpu.utils import h5
-from calciumgan_tpu.utils.summary import Summary
+from calciumgan.config import Config
+from calciumgan.eval import spike_eval
+from calciumgan.utils import h5
+from calciumgan.utils.summary import Summary
 
 
 @pytest.fixture
@@ -73,7 +73,7 @@ def test_compute_epoch_spike_metrics(fake_run, rng):
 def test_ensure_spikes_redoes_truncated_dataset(fake_run):
     """A 'spikes' dataset shorter than 'signals' (legacy run killed
     mid-append) must be dropped and fully re-deconvolved, never silently
-    mis-joined (VERDICT r2 weak #3)."""
+    mis-joined."""
     cfg, epoch_file = fake_run
     short = np.zeros((5, 96, 4), np.int8)
     h5.write(epoch_file, {"spikes": short})
@@ -105,8 +105,8 @@ def test_deconvolve_file_resumes_from_partial_chunks(fake_run):
 
 
 def test_deconvolve_file_restarts_on_chunk_mismatch(fake_run):
-    """A partial staged under a different chunk size (e.g. a TPU run
-    resumed on CPU) has unsound chunk boundaries and must restart."""
+    """A partial staged under a different chunk size (e.g. a run resumed
+    with another chunk) has unsound chunk boundaries and must restart."""
     cfg, epoch_file = fake_run
     h5.write(epoch_file,
              {"_spikes_partial_c16": np.full((8, 96, 4), 1, np.int8)})

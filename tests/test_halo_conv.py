@@ -7,8 +7,8 @@ import pytest
 from jax import lax
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from calciumgan_tpu.parallel.halo_conv import make_halo_conv1d
-from calciumgan_tpu.parallel.mesh import create_mesh, DATA_AXIS
+from calciumgan.parallel.halo_conv import make_halo_conv1d
+from calciumgan.parallel.mesh import create_mesh, DATA_AXIS
 
 
 def _reference_conv(x, kernel, stride):

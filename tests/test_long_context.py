@@ -11,10 +11,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from calciumgan_tpu.algorithms import get_algorithm
-from calciumgan_tpu.config import Config
-from calciumgan_tpu.models import get_models
-from calciumgan_tpu.parallel.long_context import (create_time_mesh,
+from calciumgan.algorithms import get_algorithm
+from calciumgan.config import Config
+from calciumgan.models import get_models
+from calciumgan.parallel.long_context import (create_time_mesh,
                                                   make_long_context_algorithm)
 
 
@@ -106,8 +106,8 @@ def test_main_cli_time_parallelism(tmp_path, rng):
     import glob
     import os
 
-    from calciumgan_tpu import train as train_lib
-    from calciumgan_tpu.data import segments
+    from calciumgan import train as train_lib
+    from calciumgan.data import segments
     from main import parse_args
 
     data = {"signals": rng.random((3, 6000)).astype(np.float32),
@@ -129,9 +129,9 @@ def test_main_cli_time_parallelism(tmp_path, rng):
     train_lib.main(cfg)
 
     ckpts = glob.glob(os.path.join(cfg.output_dir, "checkpoints",
-                                   "epoch-*.msgpack"))
+                                   "epoch-*.npz"))
     assert len(ckpts) == 1
-    from calciumgan_tpu.utils import h5
+    from calciumgan.utils import h5
     fake = h5.get(os.path.join(cfg.output_dir, "generated",
                                "epoch000_signals.h5"), "signals")
     assert fake.shape[1:] == (1024, 3)

@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from calciumgan_tpu.config import Config
-from calciumgan_tpu.models import get_models
-from calciumgan_tpu.models.base import count_params, noise_width
-from calciumgan_tpu.ops.phase_shuffle import phase_shuffle
+from calciumgan.config import Config
+from calciumgan.models import get_models
+from calciumgan.models.base import count_params, noise_width
+from calciumgan.ops.phase_shuffle import phase_shuffle
 
 
 def tiny_config(model="calciumgan", **kw):
@@ -148,3 +148,25 @@ def test_phase_shuffle_shared_across_batch():
     out = phase_shuffle(x, jax.random.PRNGKey(7), 3)
     # identical rows stay identical: one shift per batch
     assert np.ptp(np.asarray(out), axis=0).max() == 0
+
+
+def test_discriminator_without_phase_rng_raises():
+    """A caller that forgets the 'phase' key gets an error, not a silently
+    shuffle-free discriminator."""
+    cfg = tiny_config()
+    _, dis = get_models(cfg)
+    x = jnp.zeros((2, 64, 6))
+    dvars = dis.init({"params": jax.random.PRNGKey(0),
+                      "phase": jax.random.PRNGKey(1)}, x)
+    with pytest.raises(ValueError, match="no 'phase' key"):
+        dis.apply(dvars, x, training=True)
+
+
+def test_apply_with_missing_parameter_raises():
+    cfg = tiny_config()
+    gen, _ = get_models(cfg)
+    z = jnp.zeros((2, cfg.noise_dim))
+    gvars = gen.init(jax.random.PRNGKey(0), z)
+    del gvars["params"]["Dense_1"]
+    with pytest.raises(KeyError, match="Dense_1/kernel"):
+        gen.apply(gvars, z, training=False)

@@ -1,7 +1,7 @@
 """Real multi-host execution: 2 jax.distributed processes on CPU.
 
-VERDICT.md (round 1) weak #4: every ``process_count() > 1`` branch was dead
-code. This test spawns two subprocesses that initialise ``jax.distributed``
+Every ``process_count() > 1`` branch would otherwise be dead code in CI.
+This test spawns two subprocesses that initialise ``jax.distributed``
 over a localhost coordinator (4 virtual CPU devices each -> one 8-device
 global mesh) and run the training driver + generation CLI end-to-end
 (tests/multihost_worker.py). The parent asserts the single-writer and
@@ -20,8 +20,8 @@ import time
 import numpy as np
 import pytest
 
-from calciumgan_tpu.data import segments
-from calciumgan_tpu.utils import h5
+from calciumgan.data import segments
+from calciumgan.utils import h5
 
 
 def _free_port() -> int:
@@ -104,9 +104,9 @@ def test_two_process_training(tmp_path, rng):
     assert not glob.glob(os.path.join(out_dir, "hparams.json.tmp"))
     # checkpoints: one file per epoch, no leftover tmp
     ckpts = sorted(glob.glob(os.path.join(out_dir, "checkpoints",
-                                          "epoch-*.msgpack")))
+                                          "epoch-*.npz")))
     assert [os.path.basename(c) for c in ckpts] == [
-        "epoch-000.msgpack", "epoch-001.msgpack"]
+        "epoch-000.npz", "epoch-001.npz"]
     assert not glob.glob(os.path.join(out_dir, "checkpoints", "*.tmp"))
     # events: only the chief writes (one train + one validation file)
     assert len(glob.glob(os.path.join(out_dir, "events.out.tfevents.*"))) == 1
@@ -138,7 +138,7 @@ def test_two_process_training(tmp_path, rng):
 
     # --- long-context (data=2 x time=4) run across both hosts ------------
     lc_ckpts = glob.glob(os.path.join(lc_out_dir, "checkpoints",
-                                      "epoch-*.msgpack"))
+                                      "epoch-*.npz"))
     assert len(lc_ckpts) == 1
     lc_shards = sorted(glob.glob(
         os.path.join(lc_out_dir, "generated", "epoch000_signals.h5.*")))

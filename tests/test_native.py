@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from calciumgan_tpu import native
-from calciumgan_tpu.ops import oasis_ref
+from calciumgan import native
+from calciumgan.ops import oasis_ref
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native library unavailable")

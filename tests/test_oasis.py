@@ -1,15 +1,26 @@
-"""OASIS AR(1) kernel: JAX on-device vs numpy golden model.
+"""OASIS AR(1): the plain XLA machine and the float64 routine shared by the
+host and CUDA kernels, against the numpy golden model; the CUDA wrapper's
+shapes and layout; the eval path's choice of backend.
 
-SURVEY.md §7 names OASIS numerical parity as the main risk: the on-device
-scan must match the pool-adjacency algorithm output exactly (g=0.95,
+SURVEY.md §7 names OASIS numerical parity as the main risk: every backend
+must match the pool-adjacency algorithm output exactly (g=0.95,
 s_min=0.55, threshold 0.5 — the reference's spike_helper.py:28-29 recipe).
+The CUDA kernel itself runs only on a card (``-m gpu``); its arithmetic is
+the host build's (native/oasis_ar1.h), which the golden tests cover here.
 """
 
+import subprocess
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from calciumgan_tpu.ops import oasis_ref
-from calciumgan_tpu.ops.oasis import ar1_filter, deconvolve_signals, oasis_ar1_jax
+from calciumgan import native
+from calciumgan.eval import spike_eval
+from calciumgan.ops import oasis
+from calciumgan.ops import oasis_ref
+from calciumgan.ops.oasis import ar1_filter, deconvolve_signals, oasis_ar1_jax
 
 
 def synth_traces(rng, n=8, T=256, g=0.95, rate=0.02, sn=0.3):
@@ -64,122 +75,6 @@ def test_constant_zero_trace():
     assert out.sum() == 0
 
 
-def test_deconvolve_signals_host_matches_and_recomputes_flagged(rng):
-    """The host-driver path (Pallas + host-side redo gathering) must match
-    the exact path bit-for-bit — including when some traces overflow a
-    deliberately tiny stack depth and get recomputed individually."""
-    from calciumgan_tpu.ops.oasis import deconvolve_signals_host
-    from calciumgan_tpu.ops.oasis_pallas import oasis_ar1_pallas
-
-    y, _ = synth_traces(rng, n=12, T=192)
-    y = np.asarray(y, np.float32)
-    exact = np.asarray(deconvolve_signals(y, backend="while")).astype(np.int8)
-
-    # depth=8 forces stack overflow on busy traces -> redo flags fire
-    _, _, redo = oasis_ar1_pallas(y, g=0.95, s_min=0.55, depth=8,
-                                  interpret=True)
-    assert bool(np.asarray(redo).any()), "test needs at least one flag"
-    out = deconvolve_signals_host(y, depth=8)
-    assert out.dtype == np.int8
-    np.testing.assert_array_equal(out, exact)
-
-    # and with ample depth (no flags) it still matches
-    out_full = deconvolve_signals_host(y)
-    np.testing.assert_array_equal(out_full, exact)
-
-
-def test_deconvolve_signals_host_escalates_depth(rng, monkeypatch):
-    """When most of a chunk overflows the shallow first rung, the host
-    driver must re-dispatch the whole chunk one rung deeper on device
-    instead of recomputing the majority of traces on the host."""
-    from calciumgan_tpu.ops import oasis as oasis_mod
-    from calciumgan_tpu.ops.oasis_pallas import oasis_ar1_pallas
-
-    y, _ = synth_traces(rng, n=12, T=192, rate=0.2)
-    y = np.asarray(y, np.float32)
-    exact = np.asarray(deconvolve_signals(y, backend="while")).astype(np.int8)
-
-    # precondition: dense traces overflow depth 8 on well over 10% of lanes
-    _, _, redo = oasis_ar1_pallas(y, g=0.95, s_min=0.55, depth=8,
-                                  interpret=True)
-    assert float(((np.asarray(redo) & 1) != 0).mean()) > \
-        oasis_mod._ESCALATE_FRAC
-
-    redone_rows = []
-    real_exact = oasis_mod._exact_spikes_host
-
-    def spy(traces, *args, **kwargs):
-        redone_rows.append(len(traces))
-        return real_exact(traces, *args, **kwargs)
-
-    monkeypatch.setattr(oasis_mod, "_DEPTH_LADDER", (8, 192))
-    monkeypatch.setattr(oasis_mod, "_exact_spikes_host", spy)
-    out = oasis_mod.deconvolve_signals_host(y)
-    np.testing.assert_array_equal(out, exact)
-    # the deep rung (192 = T) resolves every lane: nothing went to the host
-    assert redone_rows == []
-
-
-def test_deconvolve_signals_host_merge_flags_skip_ladder(monkeypatch):
-    """Merge-budget flags (redo bit 1) must go straight to the exact host
-    redo, NOT walk the depth ladder: a deeper stack adds no merge attempts,
-    so escalating on them would waste whole-chunk re-dispatches. Trace 423
-    of this synth draw deterministically needs 3 merges in one timestep
-    (the round-4 merge-demand study), so budget 2 merge-flags it."""
-    from calciumgan_tpu.ops import oasis as oasis_mod
-    from calciumgan_tpu.ops.oasis_pallas import oasis_ar1_pallas
-    from calciumgan_tpu.ops.oasis_ref import synth_ar1_traces
-
-    y = synth_ar1_traces(np.random.default_rng(1), 512, 2048)[423:424]
-    y = np.asarray(np.repeat(y, 12, axis=0), np.float32)
-    exact = np.asarray(deconvolve_signals(y, backend="while")).astype(np.int8)
-
-    # precondition: budget 2 flags EVERY lane with the merge bit alone —
-    # 100% flagged, so cause-blind escalation would re-dispatch twice
-    _, _, redo = oasis_ar1_pallas(y, g=0.95, s_min=0.55, depth=96,
-                                  merge_attempts=2, interpret=True)
-    redo = np.asarray(redo)
-    assert ((redo & 2) != 0).all() and ((redo & 1) == 0).all()
-
-    dispatch_depths = []
-    real_dispatch = oasis_mod._pallas_spikes
-
-    def spy(dev, g, s_min, threshold, depth, interpret):
-        dispatch_depths.append(depth)
-        return real_dispatch(dev, g, s_min, threshold, depth, interpret)
-
-    monkeypatch.setattr(oasis_mod, "_MERGE_BUDGET", 2)
-    monkeypatch.setattr(oasis_mod, "_pallas_spikes", spy)
-    out = oasis_mod.deconvolve_signals_host(y)
-    np.testing.assert_array_equal(out, exact)
-    assert dispatch_depths == [oasis_mod._DEPTH_LADDER[0]]
-
-
-def test_deconvolve_signals_host_reroutes_long_traces(rng, monkeypatch):
-    """Traces longer than _PALLAS_MAX_T exceed the fused kernel's VMEM
-    window budget (three (T, 128) f32 blocks, double-buffered); the host
-    driver must hand the WHOLE batch to the exact host path instead of
-    dispatching a kernel Mosaic cannot allocate."""
-    from calciumgan_tpu.ops import oasis as oasis_mod
-
-    y, _ = synth_traces(rng, n=6, T=192)
-    y = np.asarray(y, np.float32)
-    exact = np.asarray(deconvolve_signals(y, backend="while")).astype(np.int8)
-
-    routed = []
-    real_exact = oasis_mod._exact_spikes_host
-
-    def spy(traces, *args, **kwargs):
-        routed.append(len(traces))
-        return real_exact(traces, *args, **kwargs)
-
-    monkeypatch.setattr(oasis_mod, "_PALLAS_MAX_T", 128)
-    monkeypatch.setattr(oasis_mod, "_exact_spikes_host", spy)
-    out = oasis_mod.deconvolve_signals_host(y)
-    assert routed == [6]  # every trace took the exact path, no kernel call
-    np.testing.assert_array_equal(out, exact)
-
-
 def test_ar1_filter_matches_reference_loop(rng):
     # reference generate_dg_data.py:54-70 starts the recurrence at t=2
     spikes = (rng.random((4, 100)) < 0.1).astype(np.float32)
@@ -226,7 +121,7 @@ def test_roundtrip_filter_then_deconvolve(rng):
 def test_jax_matches_native_cpp(rng):
     """Direct cross-check of the two production backends (both are also
     tested against the numpy golden model independently)."""
-    from calciumgan_tpu import native
+    from calciumgan import native
     if not native.available():
         pytest.skip("native library unavailable")
     spikes = (rng.uniform(size=(8, 300)) < 0.06).astype(np.float32)
@@ -239,95 +134,176 @@ def test_jax_matches_native_cpp(rng):
     np.testing.assert_array_equal(ours, theirs)
 
 
-def test_long_ladder_scales_with_t():
-    from calciumgan_tpu.ops.oasis import _long_ladder
-    # measured pool demand ~403 (max 439) at 20k frames: the first rung
-    # must fit it in ONE dispatch (the old static 256 always overflowed)
-    ladder = _long_ladder(20000)
-    assert ladder[0] >= 440 and ladder[0] % 64 == 0
-    assert ladder == tuple(sorted(set(ladder)))  # ascending, deduped
-    # short long-traces keep the shallow floor
-    assert _long_ladder(4097)[0] == 256
-    # rungs never exceed T
-    assert all(d <= 5000 for d in _long_ladder(5000))
-    # VMEM safety: rungs cap at 2048 rows (3 MB of stacks) no matter how
-    # long the recording — deeper demand depth-flags to the host redo
-    # instead of failing to compile
-    assert _long_ladder(400000) == (2048,)
+# ---- the shared float64 routine (host build) vs the golden model --------
+
+@pytest.mark.parametrize("T", [300, 2048, 20000])
+@pytest.mark.parametrize("rate", [0.02, 0.06])
+@pytest.mark.parametrize("lam", [0.0, 0.5])
+@pytest.mark.parametrize("s_min", [0.0, 0.55])
+def test_shared_routine_matches_golden(s_min, lam, rate, T):
+    """native/oasis_ar1.h as the host build runs it (the CUDA kernel runs
+    the same routine): calcium, spike amplitudes and binary spikes equal the
+    numpy golden model, up to float64 rounding of the pool sums."""
+    rng = np.random.default_rng(int(1e6 * rate) + T + int(10 * lam))
+    y = oasis_ref.synth_ar1_traces(rng, 2, T, rate=rate).astype(np.float64)
+    c, s = native.oasis_batch(y, g=0.95, lam=lam, s_min=s_min)
+    for i in range(len(y)):
+        c_ref, s_ref = oasis_ref.oasis_ar1(y[i], g=0.95, lam=lam,
+                                           s_min=s_min)
+        np.testing.assert_allclose(c[i], c_ref, rtol=0, atol=1e-9)
+        np.testing.assert_allclose(s[i], s_ref, rtol=0, atol=1e-9)
+    if lam == 0.0:
+        spikes = native.deconvolve_batch(y.astype(np.float32), s_min=s_min)
+        ref = oasis_ref.deconvolve_signals_ref(y.astype(np.float32),
+                                               s_min=s_min)
+        np.testing.assert_array_equal(spikes, ref)
 
 
-def test_flag_tol_gate():
-    from calciumgan_tpu.ops.oasis import _flag_tol, _BORDERLINE_TOL
-    # any s_min > 0 makes a flipped merge consequential (pool heights move
-    # by O(s_min), which can shift a NEIGHBOURING boundary spike across the
-    # threshold); only s_min == 0 is provably harmless and must stay off
-    # so clean-data exact-equality splits don't mass-flag
-    assert _flag_tol(0.55, 0.5) == _BORDERLINE_TOL
-    assert _flag_tol(0.5, 0.5) == _BORDERLINE_TOL
-    assert _flag_tol(0.3, 0.5) == _BORDERLINE_TOL
-    assert _flag_tol(0.0, 0.5) == 0.0
+# ---- the CUDA wrapper, with the FFI call replaced by the XLA machine -----
+
+@pytest.fixture
+def fake_cuda(monkeypatch):
+    """Stand in for the FFI call with the plain XLA machine on the same
+    time-major layout, recording the shapes the kernel would get."""
+    calls = []
+
+    def spikes_tn(yt, g, s_min, threshold):
+        calls.append(yt.shape)
+        s = deconvolve_signals(yt.T, g=g, s_min=s_min, threshold=threshold)
+        return s.T.astype(jnp.int8)
+
+    monkeypatch.setattr(oasis, "_cuda_spikes_tn", spikes_tn)
+    jax.clear_caches()
+    yield calls
+    jax.clear_caches()
 
 
-def test_deconvolve_signals_host_accepts_device_signals(rng):
-    """The one-chunk-ahead staging path (eval.spike_eval.deconvolve_file)
-    passes a pre-uploaded device copy; result must be identical to the
-    host-array path, and a shape mismatch must fail loudly."""
-    import jax
-    from calciumgan_tpu.ops.oasis import deconvolve_signals_host
-    y, _ = synth_traces(rng, n=6, T=192)
-    y = y.astype(np.float32)
-    base = deconvolve_signals_host(y)
-    staged = deconvolve_signals_host(y, device_signals=jax.device_put(y))
-    np.testing.assert_array_equal(base, staged)
-    with pytest.raises(ValueError, match="device_signals shape"):
-        deconvolve_signals_host(y, device_signals=jax.device_put(y[:3]))
+@pytest.mark.parametrize("shape", [(1, 64), (31, 64), (32, 64), (33, 64),
+                                   (3, 5, 64)])
+def test_cuda_wrapper_shapes_and_padding(fake_cuda, shape):
+    """Traces pad to whole blocks and go in time-major; the result comes
+    back in the caller's shape, int8, without the padded rows."""
+    rng = np.random.default_rng(sum(shape))
+    n = int(np.prod(shape[:-1]))
+    y = oasis_ref.synth_ar1_traces(rng, n, shape[-1], rate=0.05)
+    out = oasis.oasis_spikes(y.reshape(shape))
+    assert out.shape == shape and out.dtype == jnp.int8
+    padded = -(-n // oasis.CUDA_BLOCK) * oasis.CUDA_BLOCK
+    assert fake_cuda == [(shape[-1], padded)]
+    np.testing.assert_array_equal(
+        np.asarray(out).reshape(n, -1), native.deconvolve_batch(y))
 
 
-def test_exact_spikes_host_fallback_is_f64(monkeypatch, rng):
-    """Without the native lib, the exact redo must use the f64 numpy golden
-    (NOT the f32 while_loop family the flag exists to escape) and warn once
-    (round-4 ADVICE)."""
-    import warnings
-    from calciumgan_tpu import native
-    from calciumgan_tpu.ops import oasis as oasis_mod
+@pytest.mark.parametrize("shape", [(0, 64), (2, 0, 64)])
+def test_cuda_wrapper_empty_batch(fake_cuda, shape):
+    out = oasis.oasis_spikes(np.zeros(shape, np.float32))
+    assert out.shape == shape and out.dtype == jnp.int8
+    assert fake_cuda == []  # nothing to launch
 
+
+def test_cuda_wrapper_requests_scratch_and_attributes(monkeypatch):
+    """The FFI call asks XLA for the (T, N) int8 spikes plus a byte scratch
+    big enough for every trace's T-deep pool stack, and passes the
+    parameters as float64 attributes."""
+    seen = {}
+
+    def fake_ffi_call(target, results):
+        seen["target"], seen["results"] = target, results
+
+        def call(yt, **attrs):
+            seen["attrs"] = attrs
+            return tuple(jnp.zeros(r.shape, r.dtype) for r in results)
+        return call
+
+    monkeypatch.setattr(native, "register_cuda", lambda: "target-name")
+    monkeypatch.setattr(jax.ffi, "ffi_call", fake_ffi_call)
+    out = oasis._cuda_spikes_tn(jnp.zeros((100, 64), jnp.float32), 0.95,
+                                0.55, 0.5)
+    assert seen["target"] == "target-name"
+    spikes, scratch = seen["results"]
+    assert (spikes.shape, spikes.dtype) == ((100, 64), jnp.int8)
+    assert (scratch.shape, scratch.dtype) == ((100 * 64 * 20,), jnp.uint8)
+    assert {k: (type(v), float(v)) for k, v in seen["attrs"].items()} == {
+        "g": (np.float64, 0.95), "s_min": (np.float64, 0.55),
+        "threshold": (np.float64, 0.5)}
+    assert out.shape == (100, 64)
+
+
+# ---- the eval path's one choice of backend ------------------------------
+
+@pytest.mark.parametrize("platform,backend", [("gpu", "cuda"),
+                                              ("cpu", "host")])
+def test_backend_choice(monkeypatch, platform, backend):
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    assert spike_eval.oasis_backend() == backend
+
+
+def test_backend_choice_rejects_other_platforms(monkeypatch):
+    monkeypatch.setattr(jax, "default_backend", lambda: "rocm")
+    with pytest.raises(RuntimeError, match="no OASIS kernel"):
+        spike_eval.oasis_backend()
+
+
+def test_deconvolve_traces_gpu_uses_the_kernel(monkeypatch, fake_cuda):
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     monkeypatch.setattr(native, "deconvolve_batch",
-                        lambda *a, **k: None)
-    monkeypatch.setattr(oasis_mod, "_WARNED_NATIVE_FALLBACK", False)
-    y, _ = synth_traces(rng, n=4, T=200)
-    y = y.astype(np.float32)
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        got = oasis_mod._exact_spikes_host(y, 0.95, 0.55, 0.5)
-        # second call: warn-once
-        oasis_mod._exact_spikes_host(y, 0.95, 0.55, 0.5)
-    assert sum("numpy f64 golden" in str(w.message) for w in caught) == 1
-    exp = oasis_ref.deconvolve_signals_ref(
-        y.astype(np.float64), g=0.95, s_min=0.55, threshold=0.5)
-    assert got.dtype == np.int8
-    np.testing.assert_array_equal(got, exp.astype(np.int8))
+                        lambda *a, **k: pytest.fail("host kernel called"))
+    y = oasis_ref.synth_ar1_traces(np.random.default_rng(3), 6, 80,
+                                   rate=0.05).reshape(2, 3, 80)
+    out = spike_eval.deconvolve_traces(y)
+    assert out.shape == (2, 3, 80) and out.dtype == np.int8
+    assert fake_cuda == [(80, oasis.CUDA_BLOCK)]
 
 
-def test_deconvolve_signals_host_fuzz_matches_f64_golden():
-    """Seeded fuzz: the full dispatch (ladder + flags + host redo) must
-    match the f64 exact kernel across data characters — rates from sparse
-    to dense, noise levels, amplitude scales. One fixed shape so interpret
-    mode compiles once; the data varies."""
-    from calciumgan_tpu.ops.oasis import (deconvolve_signals_host,
-                                          _exact_spikes_host)
-    rng = np.random.default_rng(2024)
-    for case in range(8):
-        rate = float(rng.uniform(0.005, 0.12))
-        sn = float(rng.uniform(0.05, 0.6))
-        scale = float(rng.uniform(0.3, 8.0))
-        spikes = (rng.random((12, 160)) < rate).astype(np.float64)
-        c = np.zeros_like(spikes)
-        for t in range(1, 160):
-            c[:, t] = spikes[:, t] + 0.95 * c[:, t - 1]
-        c[:, 0] = spikes[:, 0]
-        y = (scale * (c + sn * rng.standard_normal(c.shape))).astype(np.float32)
-        got = deconvolve_signals_host(y)
-        exp = _exact_spikes_host(y, 0.95, 0.55, 0.5)
-        np.testing.assert_array_equal(
-            got, exp, err_msg=f"case {case}: rate={rate:.3f} sn={sn:.2f} "
-                              f"scale={scale:.2f}")
+def test_deconvolve_traces_gpu_missing_library_raises(monkeypatch):
+    """No fallback to the host or to the XLA machine on a GPU: a CUDA
+    library that cannot be built is an error."""
+    def no_build():
+        raise RuntimeError("building the CUDA OASIS kernel failed: nvcc")
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    monkeypatch.setattr(native, "register_cuda", no_build)
+    monkeypatch.setattr(native, "deconvolve_batch",
+                        lambda *a, **k: pytest.fail("host kernel called"))
+    jax.clear_caches()
+    with pytest.raises(RuntimeError, match="CUDA OASIS kernel failed"):
+        spike_eval.deconvolve_traces(np.zeros((2, 64), np.float32))
+    jax.clear_caches()
+
+
+def test_deconvolve_traces_cpu_uses_host_kernel(rng):
+    y = oasis_ref.synth_ar1_traces(rng, 6, 120, rate=0.05).reshape(3, 2, 120)
+    out = spike_eval.deconvolve_traces(y)
+    assert out.shape == (3, 2, 120) and out.dtype == np.int8
+    np.testing.assert_array_equal(
+        out.reshape(6, 120), oasis_ref.deconvolve_signals_ref(
+            y.reshape(6, 120)).astype(np.int8))
+
+
+def test_deconvolve_traces_cpu_missing_library_raises(monkeypatch):
+    monkeypatch.setattr(native, "deconvolve_batch", lambda *a, **k: None)
+    with pytest.raises(RuntimeError, match="host kernel is unavailable"):
+        spike_eval.deconvolve_traces(np.zeros((2, 64), np.float32))
+
+
+def test_register_cuda_reports_build_failure(monkeypatch):
+    def failing_make(*targets, timeout=120):
+        raise subprocess.CalledProcessError(2, ["make"], output="",
+                                            stderr="nvcc: not found")
+
+    monkeypatch.setattr(native, "_cuda_lib", None)
+    monkeypatch.setattr(native, "_make", failing_make)
+    with pytest.raises(RuntimeError, match="nvcc: not found"):
+        native.register_cuda()
+
+
+# ---- on a card -----------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,rate", [(2048, 0.02), (2048, 0.06), (20000, 0.02)])
+def test_cuda_kernel_matches_host(gpu_device, T, rate):
+    y = oasis_ref.synth_ar1_traces(np.random.default_rng(T), 257, T,
+                                   rate=rate)
+    out = oasis.oasis_spikes(jax.device_put(y, gpu_device))
+    np.testing.assert_array_equal(np.asarray(out),
+                                  native.deconvolve_batch(y).astype(np.int8))

@@ -10,7 +10,7 @@ import pytest
 # repo root on sys.path: tests/conftest.py bootstraps it for the session
 
 import search as search_mod  # noqa: E402
-from calciumgan_tpu.data import segments  # noqa: E402
+from calciumgan.data import segments  # noqa: E402
 
 
 @pytest.fixture
@@ -75,7 +75,7 @@ def test_search_survives_experiment_failure(tmp_path, dataset_dir,
 def test_search_parallel_over_device_slices(tmp_path, dataset_dir,
                                             monkeypatch):
     """Two experiments run concurrently, each on a 4-device slice of the
-    faked 8-device mesh (BASELINE config 5)."""
+    faked 8-device mesh."""
     monkeypatch.setattr(search_mod, "DEFAULT_GRID", {
         "algorithm": ["wgan-gp"], "model": ["mlp"],
         "activation": ["leakyrelu"], "noise_dim": [4, 8], "num_units": [4],

@@ -14,10 +14,10 @@ import pytest
 from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from calciumgan_tpu.models import base
-from calciumgan_tpu.models.calciumgan import Discriminator
-from calciumgan_tpu.ops.phase_shuffle import phase_shuffle
-from calciumgan_tpu.parallel.seq_parallel import (
+from calciumgan.models import base
+from calciumgan.models.calciumgan import Discriminator
+from calciumgan.ops.phase_shuffle import phase_shuffle
+from calciumgan.parallel.seq_parallel import (
     make_seq_parallel_discriminator, seq_parallel_discriminator)
 
 
@@ -32,7 +32,7 @@ def shard_time(mesh, x):
 
 @pytest.mark.slow
 def test_halo_phase_shuffle_matches_unsharded(rng):
-    from calciumgan_tpu.parallel.seq_parallel import halo_phase_shuffle_local
+    from calciumgan.parallel.seq_parallel import halo_phase_shuffle_local
 
     mesh = time_mesh()
     x = rng.standard_normal((2, 512, 3)).astype(np.float32)
@@ -111,7 +111,7 @@ def test_rejects_shards_narrower_than_halo(rng):
 
 def test_halo_conv_transpose_matches_flax(rng):
     import flax.linen as nn
-    from calciumgan_tpu.parallel.halo_conv import halo_conv_transpose1d_local
+    from calciumgan.parallel.halo_conv import halo_conv_transpose1d_local
 
     mesh = time_mesh()
     for K, s in ((24, 2), (4, 2), (3, 4), (5, 1)):
@@ -137,8 +137,8 @@ def test_halo_conv_transpose_matches_flax(rng):
 
 @pytest.mark.slow
 def test_seq_parallel_generator_matches_flax(rng):
-    from calciumgan_tpu.models.calciumgan import Generator
-    from calciumgan_tpu.parallel.seq_parallel import seq_parallel_generator
+    from calciumgan.models.calciumgan import Generator
+    from calciumgan.parallel.seq_parallel import seq_parallel_generator
 
     mesh = time_mesh()
     for layer_norm in (True, False):

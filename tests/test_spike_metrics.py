@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from calciumgan_tpu.ops import spike_metrics as sm
+from calciumgan.ops import spike_metrics as sm
 
 
 @pytest.fixture

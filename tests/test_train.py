@@ -6,10 +6,10 @@ import os
 import numpy as np
 import pytest
 
-from calciumgan_tpu import train as train_lib
-from calciumgan_tpu.config import Config
-from calciumgan_tpu.data import segments
-from calciumgan_tpu.utils import h5, io
+from calciumgan import train as train_lib
+from calciumgan.config import Config
+from calciumgan.data import segments
+from calciumgan.utils import h5, io
 
 
 def make_dataset_dir(tmp_path, rng, n_neurons=4, T=800, sl=32, stride=8):
@@ -44,7 +44,7 @@ def test_main_end_to_end_and_resume(tmp_path, rng):
 
     # checkpoints written at epoch 0 and final epoch
     ckpts = glob.glob(os.path.join(cfg.output_dir, "checkpoints",
-                                   "epoch-*.msgpack"))
+                                   "epoch-*.npz"))
     assert len(ckpts) == 2
     # hparams.json contract persisted
     assert os.path.exists(os.path.join(cfg.output_dir, "hparams.json"))
@@ -81,7 +81,7 @@ def test_main_end_to_end_and_resume(tmp_path, rng):
     train_lib.main(cfg2)
     assert cfg2.start_epoch == 2
     ckpts = glob.glob(os.path.join(cfg.output_dir, "checkpoints",
-                                   "epoch-*.msgpack"))
+                                   "epoch-*.npz"))
     assert len(ckpts) == 3  # epochs 0, 1(final of run 1), 3(final of run 2)
 
 
@@ -186,7 +186,7 @@ def test_main_fft_per_channel_dataset(tmp_path, rng):
     (min, max) pair must thread through the in-graph metric denorm, the
     reverse-preprocessing on saved samples, and the hparams.json round-trip
     that the eval CLIs rely on."""
-    from calciumgan_tpu.config import Config
+    from calciumgan.config import Config
     from main import parse_args
     input_dir = make_variant_dataset(tmp_path, rng, apply_fft=True,
                                      fft_norm="per_channel")
@@ -240,7 +240,7 @@ def test_checkpoint_every_flag(tmp_path, rng):
         "--verbose", "0"])
     train_lib.main(cfg)
     ckpts = glob.glob(os.path.join(cfg.output_dir, "checkpoints",
-                                   "epoch-*.msgpack"))
+                                   "epoch-*.npz"))
     assert len(ckpts) == 3
 
 
@@ -344,7 +344,7 @@ def test_plot_weights_path(tmp_path, rng):
         "--model", "mlp", "--algorithm", "gan", "--plot_weights",
         "--skip_checkpoints", "--verbose", "0"])
     train_lib.main(cfg)
-    from calciumgan_tpu.utils.tb_reader import read_scalars
+    from calciumgan.utils.tb_reader import read_scalars
     series = read_scalars(cfg.output_dir)
     weight_tags = [t for t in series if t.startswith("plots_generator/")]
     assert weight_tags, "per-parameter weight stats missing"

@@ -8,11 +8,11 @@ import struct
 import numpy as np
 import pytest
 
-from calciumgan_tpu.config import Config
-from calciumgan_tpu.data.tfrecord import read_records, _walk
-from calciumgan_tpu.utils import arrays, checkpoint, h5
-from calciumgan_tpu.utils.summary import Summary
-from calciumgan_tpu.utils.tb import EventWriter
+from calciumgan.config import Config
+from calciumgan.data.tfrecord import read_records, _walk
+from calciumgan.utils import arrays, checkpoint, h5
+from calciumgan.utils.summary import Summary
+from calciumgan.utils.tb import EventWriter
 
 
 # ---------------------------------------------------------------------------
@@ -95,8 +95,8 @@ def test_event_writer_scalars_roundtrip(tmp_path):
 
 def _tiny_state():
     import jax
-    from calciumgan_tpu.algorithms.registry import get_algorithm
-    from calciumgan_tpu.models.registry import get_models
+    from calciumgan.algorithms.registry import get_algorithm
+    from calciumgan.models.registry import get_models
     cfg = Config(model="mlp", algorithm="gan", noise_dim=4, num_units=4,
                  sequence_length=8, num_neurons=2, num_channels=2,
                  signal_shape=(8, 2), normalize=True, signals_min=0.0,
@@ -136,13 +136,12 @@ def test_checkpoint_roundtrip_and_resume(tmp_path):
 
 
 def _strip_ema_key(path):
-    """Rewrite a checkpoint as a PRE-ema-feature file (no ema_params key)."""
-    from flax import serialization
-    with open(path, "rb") as f:
-        d = serialization.msgpack_restore(f.read())
-    d.pop("ema_params", None)
+    """Rewrite a checkpoint as an ema-less file (no ema_params leaves)."""
+    with np.load(path) as archive:
+        d = {k: archive[k] for k in archive.files
+             if not k.startswith("ema_params/")}
     with open(path, "wb") as f:
-        f.write(serialization.msgpack_serialize(d))
+        np.savez(f, **d)
 
 
 @pytest.mark.parametrize("pre_feature", [False, True])
@@ -162,7 +161,7 @@ def test_resume_seeds_ema_from_ema_less_checkpoint(tmp_path, pre_feature):
         _strip_ema_key(checkpoint.checkpoint_path(cfg.ckpt_dir, 3))
 
     cfg.ema = 0.999
-    from calciumgan_tpu.algorithms.registry import get_algorithm
+    from calciumgan.algorithms.registry import get_algorithm
     algo2 = get_algorithm(cfg, algo.generator, algo.discriminator)
     template = algo2.init_state(jax.random.PRNGKey(1))
     assert template.ema_params is not None
@@ -200,7 +199,7 @@ def test_restore_ema_checkpoint_with_ema_off(tmp_path):
     import jax
     cfg, algo, state = _tiny_state()
     cfg.ema = 0.9
-    from calciumgan_tpu.algorithms.registry import get_algorithm
+    from calciumgan.algorithms.registry import get_algorithm
     algo2 = get_algorithm(cfg, algo.generator, algo.discriminator)
     ema_state = algo2.init_state(jax.random.PRNGKey(2))
     cfg.ckpt_dir = str(tmp_path / "checkpoints")
@@ -247,7 +246,7 @@ def test_save_fake_signals_replaces_on_epoch_rerun(tmp_path):
     """A crash-resumed run that re-validates an already-saved epoch must
     REPLACE the epoch file (h5 writes append): append=False on the first
     batch, append=True within the epoch."""
-    from calciumgan_tpu.utils import io as io_utils
+    from calciumgan.utils import io as io_utils
 
     cfg = Config(output_dir=str(tmp_path), normalize=False, fft=False,
                  conv2d=False, global_step=10)
@@ -436,7 +435,7 @@ def test_event_files_readable_by_real_tensorboard(tmp_path):
 
 
 def test_tb_reader_roundtrip(tmp_path):
-    from calciumgan_tpu.utils import tb_reader
+    from calciumgan.utils import tb_reader
     logdir = str(tmp_path / "r")
     w = EventWriter(logdir)
     w.scalar("loss", 2.0, step=1)
@@ -452,7 +451,7 @@ def test_tb_reader_roundtrip(tmp_path):
 
 def test_hparams_plugin_protos_parse_with_tensorboard(tmp_path):
     pd = pytest.importorskip("tensorboard.plugins.hparams.plugin_data_pb2")
-    from calciumgan_tpu.data.tfrecord import read_records, _walk
+    from calciumgan.data.tfrecord import read_records, _walk
     logdir = str(tmp_path / "hp")
     w = EventWriter(logdir)
     w.hparams_config({"noise_dim": [4, 8], "model": ["mlp"],

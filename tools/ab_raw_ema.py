@@ -24,7 +24,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from calciumgan_tpu.config import Config
+from calciumgan.config import Config
 
 
 def build_raw_view(run_dir: str, epochs, num_samples: int = 1000,

@@ -1,9 +1,9 @@
 """Print the raw-vs-EMA A/B comparison table from two scored run dirs.
 
 Reads ``metrics/metrics.json`` (written by ``compute_metrics.py``) from a
-raw-view run dir and an EMA-view run dir and emits the BASELINE.md-style
-markdown table over their common epochs. Companion to ``tools/ab_raw_ema.py``
-(which builds the raw view); the study this feeds replaces the reference's
+raw-view run dir and an EMA-view run dir and emits a markdown table over
+their common epochs. Companion to ``tools/ab_raw_ema.py`` (which builds the
+raw view); the study this feeds replaces the reference's
 single-view eval (`/root/reference/compute_metrics.py:186-200`).
 
 Usage: python tools/ab_table.py RAW_DIR EMA_DIR [LABEL]

@@ -1,5 +1,5 @@
 """Synthesize the correlated-population recording used by the end-to-end
-regression runs (BASELINE.md): N neurons driven by a shared latent rate so
+regression runs: N neurons driven by a shared latent rate so
 the population has real pairwise correlation structure, spikes pushed
 through the AR(1) calcium kernel + noise.
 
@@ -16,14 +16,14 @@ import sys
 
 import jax
 
-# host-side synthesis; don't compete for the shared TPU chip
+# host-side synthesis: keep the accelerator free
 jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from calciumgan_tpu.ops.oasis import ar1_filter  # noqa: E402
+from calciumgan.ops.oasis import ar1_filter  # noqa: E402
 
 
 def main(out: str, neurons: int = 50, frames: int = 20000,

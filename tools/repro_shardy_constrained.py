@@ -50,10 +50,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
 
-from calciumgan_tpu.algorithms import get_algorithm  # noqa: E402
-from calciumgan_tpu.config import Config  # noqa: E402
-from calciumgan_tpu.models import get_models  # noqa: E402
-from calciumgan_tpu.parallel import (batch_sharding, create_mesh,  # noqa: E402
+from calciumgan.algorithms import get_algorithm  # noqa: E402
+from calciumgan.config import Config  # noqa: E402
+from calciumgan.models import get_models  # noqa: E402
+from calciumgan.parallel import (batch_sharding, create_mesh,  # noqa: E402
                                      state_shardings)
 
 
@@ -79,8 +79,8 @@ def run(use_shardy: bool, variant: str = "all"):
         import jax.numpy as jnp
         from jax import lax
 
-        from calciumgan_tpu.algorithms.gan import _apply_updates
-        from calciumgan_tpu.algorithms.state import GANState
+        from calciumgan.algorithms.gan import _apply_updates
+        from calciumgan.algorithms.state import GANState
 
         def pin(kind, tree, shardings):
             if variant in (kind, "all"):

@@ -19,7 +19,7 @@ under Shardy. Bisect (2026-08, round 3):
   discriminator} compiled in ONE program: every batch mean downstream of
   the update comes out data_axis_size times too large.
 - A distilled 60-line toy (conv + model-sharded head + GP + adam + post
-  forward) partitions CORRECTLY — the full flax stack is somehow load-
+  forward) partitions CORRECTLY — the full model stack is somehow load-
   bearing, so this script IS the minimal known repro.
 
 While this prints MISMATCH, ``parallel/mesh.py:make_step_fns`` must keep
@@ -49,10 +49,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
 
-from calciumgan_tpu.algorithms import get_algorithm  # noqa: E402
-from calciumgan_tpu.config import Config  # noqa: E402
-from calciumgan_tpu.models import get_models  # noqa: E402
-from calciumgan_tpu.parallel import (batch_sharding, create_mesh,  # noqa: E402
+from calciumgan.algorithms import get_algorithm  # noqa: E402
+from calciumgan.config import Config  # noqa: E402
+from calciumgan.models import get_models  # noqa: E402
+from calciumgan.parallel import (batch_sharding, create_mesh,  # noqa: E402
                                      state_shardings)
 
 

@@ -1,5 +1,5 @@
-"""Measure Victor-Purpura cost at the demo eval scale (round-4 VERDICT
-weak #6: the statistic behind ``--victor_purpura`` had no measured cost).
+"""Measure Victor-Purpura cost at the demo eval scale (the statistic
+behind ``--victor_purpura``).
 
 Times one (neurons x neurons) pairwise VP matrix per trial — exactly what
 ``eval/spike_eval.victor_purpura_metrics`` computes twice per trial
@@ -10,8 +10,8 @@ are timed.
 
     python tools/time_victor_purpura.py [trials] [neurons] [T] [device]
 
-``device`` defaults to ``cpu`` (the offline-CLI convention — don't compete
-for the shared TPU chip); pass ``tpu`` to time the attached accelerator.
+``device`` defaults to ``cpu`` (the offline-CLI convention); pass ``gpu``
+to time the attached accelerator.
 """
 import os
 import sys
@@ -26,7 +26,7 @@ if (len(sys.argv) > 4 and sys.argv[4] or "cpu") == "cpu":
 
 import numpy as np
 
-from calciumgan_tpu.ops import spike_metrics as sm
+from calciumgan.ops import spike_metrics as sm
 
 
 def main(trials: int = 4, neurons: int = 102, T: int = 2048) -> None:
